@@ -1,0 +1,7 @@
+from densepoints.ba.ba import (
+    BAProblem,
+    reprojection_rmse,
+    rodrigues,
+    run_ba,
+    run_ba_sharded,
+)

@@ -1,0 +1,19 @@
+from densepoints.parallel.mesh import (
+    PATCH_AXIS,
+    make_mesh,
+    replicate,
+    shard_patches,
+)
+from densepoints.parallel.distributed import (
+    distributed_insert,
+    distributed_refine_step,
+    pad_views,
+    refine_step_impl,
+    shard_state,
+    viewsharded_insert,
+)
+from densepoints.parallel.multihost import (
+    densify_multihost,
+    global_mesh,
+    initialize_multihost,
+)

@@ -1,4 +1,4 @@
-// densepoints-tpu native runtime: host-side hot paths that are integer /
+// densepoints native runtime: host-side hot paths that are integer /
 // IO bound rather than array math — the pieces that belong in C++ rather
 // than XLA. Compiled to a shared library, bound via ctypes (no pybind11).
 //
@@ -69,7 +69,7 @@ int dp_write_ply(const char *path, int64_t n, const float *pos,
   char header[512];
   int len = snprintf(header, sizeof(header),
                      "ply\nformat binary_little_endian 1.0\n"
-                     "comment densepoints-tpu native\n"
+                     "comment densepoints native\n"
                      "element vertex %lld\n"
                      "property float x\nproperty float y\nproperty float z\n",
                      (long long)n);

@@ -14,7 +14,7 @@ multi-process runs are CPU-contended; the honest comparison is the
 per-round host-sync/overhead columns (timed around the collectives
 themselves), with the contended wall reported alongside.
 
-Usage: python scripts/scaling_measure.py [--out SCALING_MEASURED_r05.json]
+Usage: python scripts/scaling_measure.py [--out scaling_measured.json]
 """
 from __future__ import annotations
 
@@ -65,7 +65,7 @@ def run_job(nproc: int, seeds: int, tmp: Path) -> dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--out", default="SCALING_MEASURED_r05.json")
+    p.add_argument("--out", default="scaling_measured.json")
     p.add_argument("--seeds", type=int, default=2500)
     p.add_argument("--tmp", default="/tmp/scaling_measure")
     args = p.parse_args(argv)
@@ -107,7 +107,7 @@ def main(argv=None) -> int:
         "seeds": args.seeds,
         "rounds": rounds,
         "measured": rows,
-        "model_reference": "SCALING_r04.json per_round (t_fixed = "
+        "model_reference": "scripts/scaling_overhead.py per_round (t_fixed = "
         "host_sync 0.495 s/round at DTU scale; this workload's own "
         "host_sync_per_round column is the measured analog)",
     }

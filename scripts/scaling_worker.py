@@ -26,7 +26,7 @@ os.environ["XLA_FLAGS"] = (
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
 
-from densepoints_tpu.parallel.multihost import (  # noqa: E402
+from densepoints.parallel.multihost import (  # noqa: E402
     densify_multihost,
     initialize_multihost,
 )
@@ -40,9 +40,9 @@ initialize_multihost(
 
 import numpy as np  # noqa: E402
 
-from densepoints_tpu.config import load_config  # noqa: E402
-from densepoints_tpu.core import Cameras  # noqa: E402
-from densepoints_tpu.io.scene import Scene  # noqa: E402
+from densepoints.config import load_config  # noqa: E402
+from densepoints.core import Cameras  # noqa: E402
+from densepoints.io.scene import Scene  # noqa: E402
 from synthetic import TexturedPlaneScene  # noqa: E402
 
 rng = np.random.default_rng(0)

@@ -2,7 +2,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from densepoints_tpu.ba import BAProblem, reprojection_rmse, rodrigues, run_ba
+from densepoints.ba import BAProblem, reprojection_rmse, rodrigues, run_ba
 from tests.synthetic import TexturedPlaneScene
 
 
@@ -110,8 +110,8 @@ def test_ba_masked_observations_ignored(rng):
 def test_sharded_ba_matches_single_device(rng):
     """Observation-sharded BA (one psum per segment reduction) must produce
     the same camera/point updates as the single-device solver."""
-    from densepoints_tpu.ba import run_ba, run_ba_sharded
-    from densepoints_tpu.parallel import make_mesh
+    from densepoints.ba import run_ba, run_ba_sharded
+    from densepoints.parallel import make_mesh
 
     problem, _, _, _ = _make_problem(
         rng, noise_px=0.3, cam_rot_pert=0.01, cam_trans_pert=0.05,

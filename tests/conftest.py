@@ -1,68 +1,32 @@
 """Test-session configuration.
 
-Force the CPU backend with 8 virtual devices BEFORE jax is imported anywhere,
-so multi-chip sharding logic (mesh/pjit/shard_map/collectives) is exercised in
-CI without TPU hardware. Mirrors how the driver dry-runs `dryrun_multichip`.
+The suite runs on the CPU backend with 8 virtual devices, set BEFORE jax
+is imported anywhere, so multi-device sharding logic (mesh / pjit /
+shard_map / collectives) is exercised without GPUs. Pallas kernels run in
+interpret mode here; their compiled form runs on the card in
+`chip_smoke.py`.
 
-Set DENSEPOINTS_TEST_TPU=1 to keep the real backend instead: the CPU-only
-tests still pass (Pallas kernels compile for real this time) and the
-`tests/ops/test_tpu_smoke.py` Mosaic-compile smoke tests un-skip. This is the
-leg that catches "compiles in interpret mode, fails on hardware" regressions
-(the round-1 bench failure mode).
+Tests that need a real GPU take the `gpu` fixture and carry the `chip`
+marker: the fixture decides at run time (never at import or collection
+time) and skips when the default backend is not a GPU.
 """
 import os
 
-_USE_TPU = os.environ.get("DENSEPOINTS_TEST_TPU") == "1"
-if not _USE_TPU:
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    _flags = os.environ.get("XLA_FLAGS", "")
-    if "xla_force_host_platform_device_count" not in _flags:
-        os.environ["XLA_FLAGS"] = (
-            _flags + " --xla_force_host_platform_device_count=8"
-        ).strip()
+os.environ["JAX_PLATFORMS"] = "cpu"
+_flags = os.environ.get("XLA_FLAGS", "")
+if "xla_force_host_platform_device_count" not in _flags:
+    os.environ["XLA_FLAGS"] = (
+        _flags + " --xla_force_host_platform_device_count=8"
+    ).strip()
 
 import jax
 
-if not _USE_TPU:
-    jax.config.update("jax_platforms", "cpu")
-    # Persistent compilation cache: recompiles dominate the suite's wall
-    # time (~650 s cold). XLA:CPU only persists its kernels when the
-    # xla-caches knob is on; warm runs then skip most compile work.
-    # The cache dir is keyed by a host-CPU fingerprint: XLA:CPU AOT
-    # entries encode the COMPILE machine's features, and loading entries
-    # from a different machine generation produces numerically different
-    # kernels than fresh compiles — which broke 1-dev == 8-dev
-    # determinism tests (the two programs have different cache keys, so
-    # one could hit a stale entry while the other compiled fresh).
-    def _host_tag() -> str:
-        import hashlib
+from densepoints.utils.cache import enable_compilation_cache
 
-        try:
-            with open("/proc/cpuinfo") as f:
-                for line in f:
-                    if line.startswith("flags"):
-                        return hashlib.md5(line.encode()).hexdigest()[:10]
-        except OSError:
-            pass
-        import platform
-
-        return hashlib.md5(platform.processor().encode()).hexdigest()[:10]
-
-    if os.environ.get("DENSEPOINTS_NO_CACHE") != "1":
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.environ.get(
-                "JAX_COMPILATION_CACHE_DIR",
-                f"/tmp/densepoints_jax_cache_{_host_tag()}",
-            ),
-        )
-        jax.config.update(
-            "jax_persistent_cache_min_compile_time_secs", 0.5
-        )
-    try:
-        jax.config.update("jax_persistent_cache_enable_xla_caches", "all")
-    except Exception:  # older jax without the knob
-        pass
+# Persistent compilation cache: recompiles dominate the suite's wall time.
+# XLA:CPU persists its kernels only with the xla-caches knob on.
+if enable_compilation_cache() is not None:
+    jax.config.update("jax_persistent_cache_enable_xla_caches", "all")
 
 import numpy as np
 import pytest
@@ -75,7 +39,21 @@ def rng():
     return np.random.default_rng(0)
 
 
+@pytest.fixture()
+def gpu():
+    """The first GPU device; skips the test on any other backend."""
+    device = jax.devices()[0]
+    if device.platform != "gpu":
+        pytest.skip(f"needs a GPU (default device is {device.platform})")
+    return device
+
+
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-process / long-running integration tests"
+    )
+    config.addinivalue_line(
+        "markers",
+        "chip: needs a real GPU (skips elsewhere; run on the card by "
+        "`python chip_smoke.py`)",
     )

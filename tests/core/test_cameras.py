@@ -4,7 +4,7 @@ Golden anchors from tests/core/test_projection_matrix_decomposition.cpp:10-36.
 """
 import numpy as np
 
-from densepoints_tpu.core import (
+from densepoints.core import (
     Cameras,
     decompose_projection_matrix,
     is_inside,

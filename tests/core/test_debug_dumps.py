@@ -1,8 +1,8 @@
 """Debug artifact dump smoke tests."""
 import numpy as np
 
-from densepoints_tpu.pmvs.patch import PatchState
-from densepoints_tpu.utils.debug import (
+from densepoints.pmvs.patch import PatchState
+from densepoints.utils.debug import (
     dump_cloud,
     dump_keypoints,
     dump_matches,

@@ -1,13 +1,13 @@
 """Metrics and checkpoint tests."""
 import numpy as np
 
-from densepoints_tpu.pmvs.patch import PatchState
-from densepoints_tpu.utils.checkpoint import (
+from densepoints.pmvs.patch import PatchState
+from densepoints.utils.checkpoint import (
     latest_checkpoint,
     load_checkpoint,
     save_checkpoint,
 )
-from densepoints_tpu.utils.metrics import accuracy_completeness
+from densepoints.utils.metrics import accuracy_completeness
 
 
 def test_metrics_identical_clouds(rng):
@@ -59,7 +59,7 @@ def test_checkpoint_roundtrip(tmp_path, rng):
 def test_checkpoint_carries_cameras(tmp_path, rng):
     """BA-refined extrinsics round-trip through the checkpoint (so resume
     reconstructs with the geometry the patches were optimized against)."""
-    from densepoints_tpu.core.cameras import Cameras
+    from densepoints.core.cameras import Cameras
     from tests.synthetic import TexturedPlaneScene
 
     scene = TexturedPlaneScene(rng, num_views=3, width=64, height=48)

@@ -5,7 +5,7 @@ Anchors from the reference: tests/core/test_error_functions.cpp:9-15.
 import jax.numpy as jnp
 import numpy as np
 
-from densepoints_tpu.core import ncc_score, ncc_score_by_channel, ssd_score
+from densepoints.core import ncc_score, ncc_score_by_channel, ssd_score
 
 A = np.array([[1, 2, 3], [-1, -2, -3], [1, 2, 3]], dtype=np.float32)
 B = np.array([[2, 0, 5], [-4, 5, -2], [-1, 0, -3]], dtype=np.float32)
@@ -71,7 +71,7 @@ def test_ncc_by_channel_self_positive():
 
 
 def test_sad():
-    from densepoints_tpu.core import sad_score
+    from densepoints.core import sad_score
 
     a = np.array([1.0, 2.0, 3.0], np.float32)
     b = np.array([2.0, 2.0, 5.0], np.float32)

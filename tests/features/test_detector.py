@@ -2,7 +2,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from densepoints_tpu.features import detect_keypoints, harris_response
+from densepoints.features import detect_keypoints, harris_response
 
 
 def _checkerboard(h, w, sq=8):
@@ -61,7 +61,7 @@ def test_border_suppression():
 
 
 def test_fast_response_corner_vs_edge_vs_flat():
-    from densepoints_tpu.features.detector import fast_response
+    from densepoints.features.detector import fast_response
 
     # A bright square on dark background: its corners pass FAST-9, the
     # middle of its edges must not (only ~half the ring differs there).

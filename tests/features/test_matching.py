@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from densepoints_tpu.core import Cameras
-from densepoints_tpu.features import (
+from densepoints.core import Cameras
+from densepoints.features import (
     brief_pattern,
     compute_descriptors,
     detect_keypoints,
@@ -12,7 +12,7 @@ from densepoints_tpu.features import (
     hamming_distance_matrix,
     match_pair,
 )
-from densepoints_tpu.geometry import fundamental_from_projections
+from densepoints.geometry import fundamental_from_projections
 from tests.synthetic import TexturedPlaneScene
 
 
@@ -80,7 +80,7 @@ def test_direct_epipolar_matching(rng):
 def test_match_pair_absolute_self_match():
     # Each descriptor's exact copy is distance 0 < 30 -> identity matching,
     # mirroring the reference's FLANN path absolute cutoff (matcher.cpp:240).
-    from densepoints_tpu.features import match_pair_absolute
+    from densepoints.features import match_pair_absolute
 
     rng = np.random.default_rng(7)
     desc = jnp.asarray(

@@ -1,7 +1,7 @@
 """Fundamental matrix / epipolar geometry tests (property-based, seeded)."""
 import numpy as np
 
-from densepoints_tpu.geometry import (
+from densepoints.geometry import (
     epipolar_distance_matrix,
     epipolar_lines,
     fundamental_from_projections,

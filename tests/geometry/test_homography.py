@@ -1,7 +1,7 @@
 """Homography DLT and analytic plane-homography tests."""
 import numpy as np
 
-from densepoints_tpu.geometry import (
+from densepoints.geometry import (
     apply_homography,
     homography_from_4pts,
     plane_homography,

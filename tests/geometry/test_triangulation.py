@@ -6,7 +6,7 @@ distribution (but seeded here, unlike the reference).
 """
 import numpy as np
 
-from densepoints_tpu.geometry import triangulate, triangulate_pair
+from densepoints.geometry import triangulate, triangulate_pair
 from tests.synthetic import random_scene
 
 

@@ -2,8 +2,8 @@
 import numpy as np
 from PIL import Image
 
-from densepoints_tpu.io.datasets import colmap_to_scene_json, dtu_to_scene_json
-from densepoints_tpu.io.scene import load_scene
+from densepoints.io.datasets import colmap_to_scene_json, dtu_to_scene_json
+from densepoints.io.scene import load_scene
 from tests.synthetic import TexturedPlaneScene
 
 

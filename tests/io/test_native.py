@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from densepoints_tpu.native import available
+from densepoints.native import available
 
 pytestmark = pytest.mark.skipif(
     not available(), reason="native library not built"
@@ -10,7 +10,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_union_matches_matches_python():
-    from densepoints_tpu.native import tracks as nt
+    from densepoints.native import tracks as nt
 
     num_views, N = 3, 5
     pairs = np.array([[0, 1], [1, 2], [0, 2]], np.int32)
@@ -30,8 +30,8 @@ def test_union_matches_matches_python():
 
 
 def test_native_ply_roundtrip(tmp_path, rng):
-    from densepoints_tpu.io import read_ply
-    from densepoints_tpu.native.ply import write_ply_native
+    from densepoints.io import read_ply
+    from densepoints.native.ply import write_ply_native
 
     pos = rng.standard_normal((1000, 3)).astype(np.float32)
     nrm = rng.standard_normal((1000, 3)).astype(np.float32)
@@ -45,7 +45,7 @@ def test_native_ply_roundtrip(tmp_path, rng):
 
 
 def test_big_cloud_auto_native(tmp_path, rng):
-    from densepoints_tpu.io import read_ply, write_ply
+    from densepoints.io import read_ply, write_ply
 
     pos = rng.standard_normal((20000, 3)).astype(np.float32)
     path = tmp_path / "big.ply"
@@ -57,7 +57,7 @@ def test_big_cloud_auto_native(tmp_path, rng):
 
 def test_track_builder_uses_native_and_matches(rng):
     """build_tracks gives identical tracks with and without native."""
-    import densepoints_tpu.features.tracks as T
+    import densepoints.features.tracks as T
 
     num_views, N = 4, 64
     pairs = np.array([[0, 1], [0, 2], [1, 2], [2, 3]], np.int32)
@@ -69,7 +69,7 @@ def test_track_builder_uses_native_and_matches(rng):
 
     obs_n, mask_n, idx_n = T.build_tracks(num_views, kp, pairs, matches)
     # Force the python fallback.
-    import densepoints_tpu.native as nat
+    import densepoints.native as nat
 
     saved = nat._lib, nat._tried
     nat._lib, nat._tried = None, True

@@ -1,7 +1,7 @@
 """PLY writer/reader round-trip tests."""
 import numpy as np
 
-from densepoints_tpu.io import read_ply, write_mesh_ply, write_ply
+from densepoints.io import read_ply, write_mesh_ply, write_ply
 
 
 def test_binary_roundtrip(tmp_path, rng):

@@ -4,7 +4,7 @@ import json
 import numpy as np
 import pytest
 
-from densepoints_tpu.io import load_scene, read_scene_json
+from densepoints.io import load_scene, read_scene_json
 from tests.synthetic import TexturedPlaneScene
 
 

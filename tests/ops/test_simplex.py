@@ -2,7 +2,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from densepoints_tpu.ops.simplex import nelder_mead
+from densepoints.ops.simplex import nelder_mead
 
 
 def test_batched_quadratic():

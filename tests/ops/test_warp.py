@@ -8,8 +8,8 @@ PMVS optimizes. A patch with a wrong normal must score visibly worse.
 import jax.numpy as jnp
 import numpy as np
 
-from densepoints_tpu.core import Cameras, ncc_score
-from densepoints_tpu.ops.warp import bilinear_sample, patch_textures
+from densepoints.core import Cameras, ncc_score
+from densepoints.ops.warp import bilinear_sample, patch_textures
 from tests.synthetic import TexturedPlaneScene
 
 

@@ -23,7 +23,7 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from densepoints_tpu.parallel.multihost import initialize_multihost  # noqa: E402
+from densepoints.parallel.multihost import initialize_multihost  # noqa: E402
 
 initialize_multihost(
     coordinator_address=f"localhost:{port}",
@@ -36,10 +36,10 @@ import dataclasses  # noqa: E402
 
 import numpy as np  # noqa: E402
 
-from densepoints_tpu.config import PipelineConfig  # noqa: E402
-from densepoints_tpu.core import Cameras  # noqa: E402
-from densepoints_tpu.io.scene import Scene  # noqa: E402
-from densepoints_tpu.parallel.clustered import densify_clustered  # noqa: E402
+from densepoints.config import PipelineConfig  # noqa: E402
+from densepoints.core import Cameras  # noqa: E402
+from densepoints.io.scene import Scene  # noqa: E402
+from densepoints.parallel.clustered import densify_clustered  # noqa: E402
 from synthetic import TexturedSphereScene  # noqa: E402
 
 rng = np.random.default_rng(0)

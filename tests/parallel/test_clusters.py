@@ -1,8 +1,8 @@
 """Covisibility view clustering (pod-scale image partitioning axis)."""
 import numpy as np
 
-from densepoints_tpu.core import Cameras
-from densepoints_tpu.parallel.clusters import (
+from densepoints.core import Cameras
+from densepoints.parallel.clusters import (
     cluster_halos,
     cluster_views,
     covisibility_matrix,

@@ -3,16 +3,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from densepoints_tpu.config import OptimizeConfig, OrganizerConfig
-from densepoints_tpu.core import Cameras
-from densepoints_tpu.parallel import (
+from densepoints.config import OptimizeConfig, OrganizerConfig
+from densepoints.core import Cameras
+from densepoints.parallel import (
     distributed_insert,
     distributed_refine_step,
     make_mesh,
     shard_state,
 )
-from densepoints_tpu.pmvs import PatchState, filter_by_error, optimize_patches
-from densepoints_tpu.pmvs.organizer import (
+from densepoints.pmvs import PatchState, filter_by_error, optimize_patches
+from densepoints.pmvs.organizer import (
     bulk_try_insert,
     candidate_cells,
     make_grids,
@@ -93,7 +93,7 @@ def test_viewsharded_insert_matches_single_device(rng):
     """The view-sharded merge protocol (one (P,) psum, no grid replication)
     must accept exactly the same candidates and build the same occupancy as
     the single-device organizer."""
-    from densepoints_tpu.parallel.distributed import (
+    from densepoints.parallel.distributed import (
         pad_views,
         viewsharded_insert,
     )
@@ -136,7 +136,7 @@ def test_viewsharded_insert_matches_single_device(rng):
 
 def test_viewsharded_insert_respects_occupancy(rng):
     """Cells already occupied must reject newcomers (per-view owner check)."""
-    from densepoints_tpu.parallel.distributed import (
+    from densepoints.parallel.distributed import (
         pad_views,
         viewsharded_insert,
     )

@@ -1,8 +1,8 @@
 """Multi-HOST (multi-process) tests: N-process cloud == 1-process cloud.
 
 Spawns real subprocesses that join a jax.distributed job over virtual CPU
-devices with gloo collectives — the same code path a TPU pod would run over
-DCN (SURVEY.md §5.8). The conftest's in-process backend is NOT involved:
+devices with gloo collectives — the same code path a multi-host GPU job runs
+over the network (SURVEY.md §5.8). The conftest's in-process backend is NOT involved:
 workers configure their own backends.
 """
 import os

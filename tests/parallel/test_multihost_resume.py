@@ -8,11 +8,11 @@ import dataclasses
 
 import numpy as np
 
-from densepoints_tpu.config import PipelineConfig
-from densepoints_tpu.core import Cameras
-from densepoints_tpu.io.scene import Scene
-from densepoints_tpu.parallel.mesh import make_mesh
-from densepoints_tpu.parallel.multihost import densify_multihost
+from densepoints.config import PipelineConfig
+from densepoints.core import Cameras
+from densepoints.io.scene import Scene
+from densepoints.parallel.mesh import make_mesh
+from densepoints.parallel.multihost import densify_multihost
 from tests.synthetic import TexturedPlaneScene
 
 

@@ -21,11 +21,11 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from densepoints_tpu.config import load_config
-from densepoints_tpu.core import Cameras
-from densepoints_tpu.io.scene import Scene
-from densepoints_tpu.parallel.mesh import PATCH_AXIS
-from densepoints_tpu.parallel.multihost import densify_multihost
+from densepoints.config import load_config
+from densepoints.core import Cameras
+from densepoints.io.scene import Scene
+from densepoints.parallel.mesh import PATCH_AXIS
+from densepoints.parallel.multihost import densify_multihost
 from tests.synthetic import TexturedPlaneScene
 
 

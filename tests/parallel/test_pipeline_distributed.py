@@ -3,14 +3,14 @@ import json
 
 import numpy as np
 
-from densepoints_tpu.config import (
+from densepoints.config import (
     ExpandConfig,
     MatchingConfig,
     OptimizeConfig,
     PipelineConfig,
 )
-from densepoints_tpu.io import load_scene
-from densepoints_tpu.parallel.pipeline import densify_distributed
+from densepoints.io import load_scene
+from densepoints.parallel.pipeline import densify_distributed
 from tests.synthetic import TexturedPlaneScene
 
 

@@ -8,10 +8,10 @@ numeric: the mesh path returns byte-identical seed points.
 import jax
 import numpy as np
 
-from densepoints_tpu.config import MatchingConfig
-from densepoints_tpu.core import Cameras
-from densepoints_tpu.parallel.mesh import make_mesh
-from densepoints_tpu.pmvs.seed import (
+from densepoints.config import MatchingConfig
+from densepoints.core import Cameras
+from densepoints.parallel.mesh import make_mesh
+from densepoints.pmvs.seed import (
     _viewsharded_features,
     generate_seed_points,
 )
@@ -44,11 +44,11 @@ def test_viewsharded_features_split_and_equal(rng):
     assert all(s[0] == per_dev for s in shard_shapes), shard_shapes
     assert all(s[1:] == images.shape[1:] for s in shard_shapes)
 
-    from densepoints_tpu.features.descriptors import (
+    from densepoints.features.descriptors import (
         brief_pattern,
         compute_descriptors,
     )
-    from densepoints_tpu.features.detector import detect_keypoints
+    from densepoints.features.detector import detect_keypoints
 
     xy, resp, valid = detect_keypoints(
         images,

@@ -3,15 +3,15 @@ import json
 
 import numpy as np
 
-from densepoints_tpu.config import (
+from densepoints.config import (
     BAConfig,
     ExpandConfig,
     MatchingConfig,
     OptimizeConfig,
     PipelineConfig,
 )
-from densepoints_tpu.io import load_scene
-from densepoints_tpu.pmvs.pipeline import densify
+from densepoints.io import load_scene
+from densepoints.pmvs.pipeline import densify
 from tests.synthetic import TexturedPlaneScene
 
 

@@ -1,7 +1,7 @@
 """Determinism: same seed -> same cloud (SURVEY.md §5.2).
 
 The reference's OpenMP queue made contested-cell outcomes depend on thread
-scheduling; the TPU redesign resolves all contention by global candidate
+scheduling; the batched redesign resolves all contention by global candidate
 ids, so two identical runs must agree BYTE-FOR-BYTE — on one device and on
 the 8-device mesh (cross-process agreement is covered by
 tests/parallel/test_multihost.py).
@@ -11,11 +11,11 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from densepoints_tpu.config import PipelineConfig
-from densepoints_tpu.core import Cameras
-from densepoints_tpu.io.scene import Scene
-from densepoints_tpu.pmvs.expand import expand_patches
-from densepoints_tpu.pmvs.patch import PatchState
+from densepoints.config import PipelineConfig
+from densepoints.core import Cameras
+from densepoints.io.scene import Scene
+from densepoints.pmvs.expand import expand_patches
+from densepoints.pmvs.patch import PatchState
 from tests.synthetic import TexturedPlaneScene
 
 
@@ -48,7 +48,7 @@ def _cloud_single(seed: int):
 
 
 def _cloud_mesh(seed: int):
-    from densepoints_tpu.parallel.multihost import densify_multihost
+    from densepoints.parallel.multihost import densify_multihost
 
     cams, images, state, pts = _scene_and_seeds(seed)
     scene = Scene(cameras=cams, images=np.asarray(images), colors=None)

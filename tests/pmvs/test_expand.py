@@ -2,10 +2,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from densepoints_tpu.config import ExpandConfig, OptimizeConfig, OrganizerConfig
-from densepoints_tpu.core import Cameras
-from densepoints_tpu.pmvs import PatchState
-from densepoints_tpu.pmvs.expand import expand_patches, make_expansion_candidates
+from densepoints.config import ExpandConfig, OptimizeConfig, OrganizerConfig
+from densepoints.core import Cameras
+from densepoints.pmvs import PatchState
+from densepoints.pmvs.expand import expand_patches, make_expansion_candidates
 from tests.synthetic import TexturedPlaneScene
 
 

@@ -2,9 +2,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from densepoints_tpu.core import Cameras
-from densepoints_tpu.pmvs.filter import filter_occlusion, filter_weak_support
-from densepoints_tpu.pmvs.patch import PatchState
+from densepoints.core import Cameras
+from densepoints.pmvs.filter import filter_occlusion, filter_weak_support
+from densepoints.pmvs.patch import PatchState
 from tests.synthetic import TexturedPlaneScene
 
 
@@ -133,10 +133,10 @@ def test_min_final_visible_views_floor(rng):
     in run_filters; 0 keeps reference semantics (no extra kills)."""
     import numpy as np
 
-    from densepoints_tpu.config import FilterConfig, OptimizeConfig
-    from densepoints_tpu.core.cameras import Cameras
-    from densepoints_tpu.pmvs.patch import PatchState
-    from densepoints_tpu.pmvs.filter import run_filters
+    from densepoints.config import FilterConfig, OptimizeConfig
+    from densepoints.core.cameras import Cameras
+    from densepoints.pmvs.patch import PatchState
+    from densepoints.pmvs.filter import run_filters
 
     K = np.array([[300.0, 0, 120.0], [0, 300.0, 90.0], [0, 0, 1.0]])
     Ps = []

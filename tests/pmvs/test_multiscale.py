@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from densepoints_tpu.core import Cameras
-from densepoints_tpu.multiscale import build_pyramid, downsample2, scale_cameras
+from densepoints.core import Cameras
+from densepoints.multiscale import build_pyramid, downsample2, scale_cameras
 from tests.synthetic import TexturedPlaneScene
 
 

@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from densepoints_tpu.core import Cameras
-from densepoints_tpu.pmvs.organizer import (
+from densepoints.core import Cameras
+from densepoints.pmvs.organizer import (
     bulk_try_insert,
     candidate_cells,
     make_grids,
@@ -92,7 +92,7 @@ def test_multi_slot_cells_honored(rng):
     patches, the K+1-th is rejected, slots fill in priority order."""
     import jax.numpy as jnp
 
-    from densepoints_tpu.pmvs.organizer import bulk_try_insert, OccupancyGrids
+    from densepoints.pmvs.organizer import bulk_try_insert, OccupancyGrids
 
     # One view grid, 2x2 cells, K=2 — three candidates all aim at cell 0
     # of views 0 and 1 (min_grids=2 so both must land).
@@ -124,7 +124,7 @@ def test_single_slot_path_unchanged(rng):
     """K = 1 keeps the original 3-D cells layout and semantics."""
     import jax.numpy as jnp
 
-    from densepoints_tpu.pmvs.organizer import bulk_try_insert, OccupancyGrids
+    from densepoints.pmvs.organizer import bulk_try_insert, OccupancyGrids
 
     grids = OccupancyGrids(
         cells=jnp.full((2, 2, 2), -1, jnp.int32),
@@ -146,7 +146,7 @@ def test_prescreen_matches_insert_acceptance():
     the same K-round claim contest minus the writes."""
     import jax.numpy as jnp
 
-    from densepoints_tpu.pmvs.organizer import (
+    from densepoints.pmvs.organizer import (
         OccupancyGrids,
         bulk_try_insert,
         prescreen_candidates,
@@ -182,7 +182,7 @@ def test_prescreen_matches_insert_acceptance():
 def test_prescreen_full_cells_rejected():
     import jax.numpy as jnp
 
-    from densepoints_tpu.pmvs.organizer import (
+    from densepoints.pmvs.organizer import (
         OccupancyGrids,
         prescreen_candidates,
     )

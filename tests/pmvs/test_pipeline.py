@@ -8,14 +8,14 @@ import json
 
 import numpy as np
 
-from densepoints_tpu.config import (
+from densepoints.config import (
     ExpandConfig,
     MatchingConfig,
     OptimizeConfig,
     PipelineConfig,
 )
-from densepoints_tpu.io import load_scene, read_ply
-from densepoints_tpu.pmvs.pipeline import densify
+from densepoints.io import load_scene, read_ply
+from densepoints.pmvs.pipeline import densify
 from tests.synthetic import TexturedPlaneScene
 
 
@@ -66,7 +66,7 @@ def test_densify_end_to_end(tmp_path, rng):
 
 
 def test_cli_main(tmp_path, rng):
-    from densepoints_tpu.cli import main
+    from densepoints.cli import main
 
     scene_path, _ = _write_scene(tmp_path, rng, num_views=5)
     settings = tmp_path / "settings.json"
@@ -90,7 +90,7 @@ def test_cli_main(tmp_path, rng):
 
 
 def test_densify_checkpoint_resume_and_debug_dumps(tmp_path, rng):
-    from densepoints_tpu.config import RuntimeConfig
+    from densepoints.config import RuntimeConfig
 
     scene_path, scene = _write_scene(tmp_path, rng)
     loaded = load_scene(scene_path)

@@ -8,15 +8,15 @@ import json
 
 import numpy as np
 
-from densepoints_tpu.config import (
+from densepoints.config import (
     ExpandConfig,
     MatchingConfig,
     OptimizeConfig,
     PipelineConfig,
 )
-from densepoints_tpu.io import load_scene
-from densepoints_tpu.pmvs.pipeline import densify
-from densepoints_tpu.utils.metrics import accuracy_completeness
+from densepoints.io import load_scene
+from densepoints.pmvs.pipeline import densify
+from densepoints.utils.metrics import accuracy_completeness
 from tests.synthetic import TexturedSphereScene
 
 

@@ -4,10 +4,10 @@ filter and optimize cleanly."""
 import jax.numpy as jnp
 import numpy as np
 
-from densepoints_tpu.config import MatchingConfig, OptimizeConfig
-from densepoints_tpu.core import Cameras
-from densepoints_tpu.pmvs import filter_by_error, optimize_patches
-from densepoints_tpu.pmvs.seed import (
+from densepoints.config import MatchingConfig, OptimizeConfig
+from densepoints.core import Cameras
+from densepoints.pmvs import filter_by_error, optimize_patches
+from densepoints.pmvs.seed import (
     create_patches_from_points,
     default_pairs,
     generate_seed_points,
@@ -73,7 +73,7 @@ def test_epipolar_all_pairs_yields_denser_seeds(rng):
     tracks, and both must triangulate onto the plane."""
     import dataclasses
 
-    from densepoints_tpu.config import MatchingConfig
+    from densepoints.config import MatchingConfig
 
     scene, cams, images = _setup(rng)
     best = MatchingConfig(matcher="epipolar")
@@ -85,9 +85,9 @@ def test_epipolar_all_pairs_yields_denser_seeds(rng):
     # reference relies on the downstream NCC filter to kill bad pairs,
     # seed.cpp:110-126). After the filter the survivors must lie on the
     # plane (z ~ 0 at scene scale ~5).
-    from densepoints_tpu.config import OptimizeConfig
-    from densepoints_tpu.pmvs.optimize import filter_by_error
-    from densepoints_tpu.pmvs.seed import create_patches_from_points
+    from densepoints.config import OptimizeConfig
+    from densepoints.pmvs.optimize import filter_by_error
+    from densepoints.pmvs.seed import create_patches_from_points
 
     state = create_patches_from_points(cams, np.asarray(pts_all))
     state = filter_by_error(images, cams, state, 11, OptimizeConfig())
@@ -100,7 +100,7 @@ def test_chunked_pair_matching_equals_flat(rng, monkeypatch):
     """Pair-chunked matching (the DTU-scale memory fix: a flat vmap over
     ~285 pairs materializes ~19 GB of distance matrices) must produce the
     same matches as the flat path."""
-    from densepoints_tpu.pmvs import seed as seed_mod
+    from densepoints.pmvs import seed as seed_mod
 
     scene, cams, images = _setup(rng)
     cfg = MatchingConfig(max_keypoints_per_view=256)

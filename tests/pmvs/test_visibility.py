@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from densepoints_tpu.core import Cameras
-from densepoints_tpu.pmvs import classify_views, compute_color
+from densepoints.core import Cameras
+from densepoints.pmvs import classify_views, compute_color
 from tests.synthetic import TexturedPlaneScene
 
 

@@ -1,8 +1,8 @@
 """Surface extraction tests: plane and sphere reconstructions."""
 import numpy as np
 
-from densepoints_tpu.config import SurfaceConfig
-from densepoints_tpu.surface import extract_surface
+from densepoints.config import SurfaceConfig
+from densepoints.surface import extract_surface
 
 
 def test_plane_surface(rng):
